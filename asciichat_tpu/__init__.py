@@ -1,11 +1,11 @@
-"""asciichat_tpu — a TPU-native (JAX/XLA/Pallas) framework with the capabilities of ascii-chat.
+"""asciichat_tpu — an accelerator-first (JAX/XLA) framework with the capabilities of ascii-chat.
 
 The reference (zfogg/ascii-chat) is a C terminal video-chat system. This framework
-re-implements its capabilities TPU-first:
+re-implements its capabilities accelerator-first:
 
 - the per-frame media path (resize -> luma -> quantize -> glyph map -> ANSI emission)
-  runs as batched, fused JAX/Pallas kernels over ``uint8 [B, H, W, 3]`` frames
-  resident in HBM (reference: lib/video/ascii/*, lib/video/rgba/image.c),
+  runs as batched, fused XLA kernels over ``uint8 [B, H, W, 3]`` frames
+  resident in device memory (reference: lib/video/ascii/*, lib/video/rgba/image.c),
 - the inherently sequential ANSI byte grammar is emitted on the host by a
   multithreaded C++ table-walker fed by fixed-shape device "cell records"
   (reference: lib/video/ascii/output_buffer.c, lib/video/terminal/ansi.c),
@@ -13,8 +13,8 @@ re-implements its capabilities TPU-first:
   (reference: src/server/stream.c),
 - audio mixing (duck/compress/soft-clip) is a batched JAX op
   (reference: lib/audio/mixer.c),
-- multi-chip scaling shards the client/frame batch over a ``jax.sharding.Mesh``
-  (ICI collectives via pjit/shard_map), not per-client threads.
+- multi-device scaling shards the client/frame batch over a ``jax.sharding.Mesh``
+  (collectives inserted by XLA), not per-client threads.
 
 Output is byte-exact with the reference's scalar renderers (the production
 oracle, see SURVEY.md Appendix A).

@@ -615,7 +615,17 @@ def main(args) -> int:
         color_override=None if args.color_mode is None else args.color_mode,
     )
     w, h = term.terminal_size(args.width, args.height)
-    wire = proto.WireCapabilities(caps=caps, width=w, height=h)
+    from asciichat_tpu.ops.filters import FILTER_NAMES
+
+    if args.color_filter not in FILTER_NAMES:
+        print(f"client: unknown --color-filter {args.color_filter!r} "
+              f"(one of {', '.join(FILTER_NAMES)})", flush=True)
+        return 2
+    # the server applies the receiver's filter (color_filter in the caps
+    # packet, protocol.c client capabilities)
+    wire = proto.WireCapabilities(
+        caps=caps, width=w, height=h,
+        color_filter=FILTER_NAMES.index(args.color_filter))
     if args.no_compress:
         wire.capabilities_mask |= 0x1  # cannot-decompress bit (webclient parity)
     source = None

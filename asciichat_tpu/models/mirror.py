@@ -3,8 +3,8 @@
 Equivalent of mirror_main -> session_render_loop (src/mirror/main.c:379,
 src/common/session/render.c:55) with the reference's 3-stage pipeline
 (capture -> convert -> display, src/common/session/pipeline.c): capture runs
-on a thread feeding a drop-on-full queue; the main loop converts on the TPU
-and writes frames. --snapshot renders one frame and exits
+on a thread feeding a drop-on-full queue; the main loop converts on the
+device and writes frames. --snapshot renders one frame and exits
 (session/render.c:128-143). The capture transforms, display, and pacing are
 the shared session framework (models/session.py) — mirror is mode glue.
 """

@@ -31,10 +31,6 @@ import os
 import struct
 import time
 
-from cryptography.hazmat.primitives.asymmetric.x25519 import (
-    X25519PrivateKey,
-    X25519PublicKey,
-)
 
 KEY_SIZE = 32
 NONCE_SIZE = 24
@@ -44,6 +40,14 @@ AUTH_CHALLENGE_SIZE = 32
 
 REKEY_PACKET_THRESHOLD = 1_000_000  # crypto.c:154
 REKEY_TIME_THRESHOLD_S = 3600.0  # crypto.c:155
+
+
+def _x25519():
+    """X25519 key classes, imported where a handshake first needs them:
+    a plaintext session never loads the optional ``cryptography``."""
+    from cryptography.hazmat.primitives.asymmetric import x25519
+
+    return x25519.X25519PrivateKey, x25519.X25519PublicKey
 
 
 @functools.lru_cache(maxsize=1)
@@ -215,7 +219,7 @@ class CryptoContext:
         packet_threshold: int = REKEY_PACKET_THRESHOLD,
         time_threshold_s: float = REKEY_TIME_THRESHOLD_S,
     ):
-        self._private = X25519PrivateKey.generate()
+        self._private = _x25519()[0].generate()
         self.public_key = self._private.public_key().public_bytes_raw()
         self.shared_key: bytes | None = None
         self.session_id = os.urandom(SESSION_ID_SIZE)
@@ -231,7 +235,7 @@ class CryptoContext:
         self.rekey = RekeyState()
         self.packet_threshold = packet_threshold
         self.time_threshold_s = time_threshold_s
-        self._temp_private: X25519PrivateKey | None = None
+        self._temp_private = None  # X25519 private key during a rekey
         self._temp_public: bytes = b""
         self.password_key: bytes | None = None
         self.previous_key: bytes | None = None
@@ -243,7 +247,8 @@ class CryptoContext:
     # -- key exchange ----------------------------------------------------
     def compute_shared(self, peer_public: bytes) -> None:
         """Raw X25519 output is the secretbox key (crypto.c:264-266)."""
-        self.shared_key = self._private.exchange(X25519PublicKey.from_public_bytes(peer_public))
+        self.shared_key = self._private.exchange(
+            _x25519()[1].from_public_bytes(peer_public))
 
     def set_password(self, password: str) -> None:
         """Password key via Argon2id (native/argon2.cpp, RFC 9106), with the
@@ -353,7 +358,7 @@ class CryptoContext:
 
     def start_rekey(self) -> bytes:
         """-> new ephemeral public key (REKEY_REQUEST payload)."""
-        self._temp_private = X25519PrivateKey.generate()
+        self._temp_private = _x25519()[0].generate()
         self._temp_public = self._temp_private.public_key().public_bytes_raw()
         self.rekey.in_progress = True
         self.rekey.started_at = time.monotonic()
@@ -397,9 +402,9 @@ class CryptoContext:
         responder never computed, which would MAC-fail every subsequent
         packet and tear the session down. finish_rekey tolerates a bare
         32-byte response for compatibility."""
-        temp = X25519PrivateKey.generate()
+        temp = _x25519()[0].generate()
         self._pending_key = temp.exchange(
-            X25519PublicKey.from_public_bytes(peer_new_public)
+            _x25519()[1].from_public_bytes(peer_new_public)
         )
         return temp.public_key().public_bytes_raw() + peer_new_public[:32]
 
@@ -434,6 +439,6 @@ class CryptoContext:
         if len(response) >= 64 and response[32:64] != self._temp_public:
             raise ValueError("rekey response answers a stale request")
         self._pending_key = self._temp_private.exchange(
-            X25519PublicKey.from_public_bytes(response[:32])
+            _x25519()[1].from_public_bytes(response[:32])
         )
         self._commit_pending()

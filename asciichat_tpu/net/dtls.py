@@ -4,8 +4,8 @@ security layer for WebRTC DataChannels.
 Role parity: the reference's WebRTC transport (lib/network/webrtc/webrtc.c,
 via libdatachannel) secures DataChannels with certificate-based DTLS whose
 trust anchor is the SDP a=fingerprint line, relayed through authenticated
-signaling. This module provides the same layer the TPU-native way available
-in this environment: OpenSSL 3's DTLS implementation driven sans-io through
+signaling. This module provides the same layer with what the host already
+has: OpenSSL 3's DTLS implementation driven sans-io through
 memory BIOs, with self-signed ECDSA P-256 identities and SHA-256 fingerprint
 pinning (the signaling blob rides Ed25519-signed envelopes, net/identity.py,
 so the fingerprint channel is authenticated exactly like the browser's

@@ -4,7 +4,7 @@ The reference signs its ACDS packets with Ed25519 identity keys (packed
 structs + signatures, acds.h; crypto identity keys in lib/crypto/crypto.c) so
 discovery-service traffic — session creation, joins, metrics, host
 designations — cannot be forged by an on-path attacker or another
-participant. This module is the TPU framework's counterpart:
+participant. This module is this framework's counterpart:
 
 - Identity: an Ed25519 keypair (ephemeral, or persisted to a key file).
 - Envelope: every ACDS subprotocol payload travels as

@@ -198,6 +198,8 @@ _zstd_d = None
 
 
 def _zstd(level: int = 1):
+    """(compressor, decompressor); ImportError when the optional
+    ``zstandard`` package is absent."""
     global _zstd_c, _zstd_d
     import zstandard
 
@@ -208,11 +210,27 @@ def _zstd(level: int = 1):
     return _zstd_c[1], _zstd_d
 
 
+_warned_no_zstd = False
+
+
 def maybe_compress(payload: bytes, level: int = 1) -> tuple[bytes, bool]:
-    """zstd-compress when >= 1 KB and the result is < 80% of the original."""
+    """zstd-compress when >= 1 KB and the result is < 80% of the original.
+
+    Without ``zstandard`` every payload goes uncompressed: the compressed
+    flag is per packet, so that is wire-legal (logged once)."""
+    global _warned_no_zstd
     if len(payload) < COMPRESSION_MIN_SIZE:
         return payload, False
-    comp, _ = _zstd(level)
+    try:
+        comp, _ = _zstd(level)
+    except ImportError:
+        if not _warned_no_zstd:
+            _warned_no_zstd = True
+            from asciichat_tpu.utils.logsys import get_logger
+
+            get_logger("packet").warning(
+                "zstandard not installed: sending frames uncompressed")
+        return payload, False
     out = comp.compress(payload)
     if len(out) < COMPRESSION_RATIO_THRESHOLD * len(payload):
         return out, True
@@ -230,10 +248,13 @@ def decompress(payload: bytes, original_size: int) -> bytes:
     first; unknown-size (streaming) frames are safely capped by
     max_output_size. ZstdError converts to ValueError so corrupt frames
     take the protocol-violation disconnect path, not an unhandled task
-    exception."""
-    import zstandard
+    exception. Without ``zstandard`` a compressed packet is bad data too."""
+    try:
+        import zstandard
 
-    _, dec = _zstd()
+        _, dec = _zstd()
+    except ImportError:
+        raise ValueError("compressed packet but zstandard is not installed") from None
     try:
         declared = zstandard.get_frame_parameters(payload).content_size
         if (declared not in (zstandard.CONTENTSIZE_UNKNOWN,

@@ -1,10 +1,10 @@
 """Batched audio DSP: N-source mixer with ducking/compression/soft-clip,
 noise gate, one-pole filters, linear resampler.
 
-TPU re-expression of lib/audio/mixer.c. The reference mixes per-client on
+Device re-expression of lib/audio/mixer.c. The reference mixes per-client on
 dedicated 100 fps render threads, mutating one shared mixer under a rwlock
 (mixer.c:491-839); here ONE jitted op produces the mixes for ALL clients per
-tick: sources vectorize across VPU lanes, time steps run as a lax.scan over
+tick: sources vectorize across vector lanes, time steps run as a lax.scan over
 256-sample frames (MIXER_FRAME_SIZE, mixer.h:114) carrying the envelope /
 ducking / compressor state. Per-client "exclude self" mixes (mixer.c:636) are
 computed as (full weighted sum) - (own contribution) — O(1) per client instead
@@ -357,7 +357,7 @@ def analyze_levels(buf: jax.Array) -> dict[str, jax.Array]:
 
 # ---------------------------------------------------------------------------
 # Acoustic echo cancellation (the reference integrates WebRTC AEC3 via
-# lib/audio/client_pipeline.cpp). TPU-native seat: a per-sample NLMS adaptive
+# lib/audio/client_pipeline.cpp). Device seat: a per-sample NLMS adaptive
 # filter — the far-end (speaker) signal is filtered by an adaptive estimate
 # of the echo path and subtracted from the near-end (mic) capture; weights
 # update inside a lax.scan — protected by the two AEC3-role controls that
@@ -390,7 +390,10 @@ def echo_cancel(
 ):
     """-> (echo-cancelled mic [N], weights, far_tail, hang, dt_frac).
     NLMS w += mu * e * x / (||x||^2 + eps) with Geigel adaptation freeze;
-    dt_frac is the fraction of samples with adaptation frozen (telemetry)."""
+    dt_frac is the fraction of samples with adaptation frozen (telemetry).
+    Both dot products ask for ``Precision.HIGHEST``: on a GPU a float32
+    product may otherwise run in TF32 (~3 decimal digits), which the
+    per-sample weight recursion would accumulate."""
     far_hist = jnp.concatenate([far_tail, far])  # [taps + N]
 
     def step(carry, idx):
@@ -399,7 +402,7 @@ def echo_cancel(
         # so the filter models echo delays 0..taps-1 — a zero-latency speaker
         # path (loopback tests, software mixers) must be cancellable too
         x = jax.lax.dynamic_slice(far_hist, (idx + 1,), (taps,))
-        y = jnp.dot(w, x)
+        y = jnp.dot(w, x, precision=jax.lax.Precision.HIGHEST)
         e = mic[idx] - y
         # Geigel: |mic| vs the loudest far sample the echo could stem from
         # (assumes the acoustic path attenuates by >= 1/geigel_t, i.e. 6 dB
@@ -407,7 +410,7 @@ def echo_cancel(
         dt = jnp.abs(mic[idx]) > geigel_t * jnp.max(jnp.abs(x))
         hang = jnp.where(dt, jnp.int32(hangover), jnp.maximum(hang - 1, 0))
         adapt = (hang == 0).astype(jnp.float32)
-        norm = jnp.dot(x, x) + 1e-6
+        norm = jnp.dot(x, x, precision=jax.lax.Precision.HIGHEST) + 1e-6
         w = w + (adapt * mu) * e * x / norm
         return (w, hang), (e, 1.0 - adapt)
 

@@ -1,21 +1,15 @@
 """Device-side ANSI byte emission (truecolor FG grammar) — a MEASURED
-EXPERIMENT, kept out of the serving path (like ops/pallas_resize.py).
+EXPERIMENT.
 
-Verdict (v5e-1, 203x57, B=32, 2026-08): byte-exact but ~60-1500x slower
-than the host emitter. The parallel byte computation (SGR decisions,
-lengths, digit bytes) vectorizes fine; COMPACTION of variable-length
-per-cell chunks into one byte stream does not — every formulation needs
-per-element dynamic addressing, which TPUs execute on the scalar core:
-
-- searchsorted + flat gather:  49,400 us/frame (163 s compile)
-- scatter (.at[pos].set):       2,000 us/frame (145 s compile)
-- native host emitter:              33 us/frame (worst-case content)
-
-A "device formats, host compacts" split loses too: it ships n*21 B/frame
-of chunks (6x the cell records' D2H) to save host work the emitter does
-at memcpy speed anyway. This closes SURVEY §7.3's open question
-empirically: two-phase device emission is the right SHAPE (the record
-format IS phase 1), but phase 2's scatter belongs on the host.
+Kept out of the serving path: whether it beats the native host emitter on
+the GPU is unmeasured (ROADMAP speed item 2). Phase 2 of the compaction
+(variable-length per-cell chunks into one byte stream) needs per-element
+dynamic addressing (a scatter or a searchsorted gather), the costly part of
+any device formulation. A "device
+formats, host compacts" split ships n*21 B/frame of chunks (6x the cell
+records' D2H) to save host work the emitter does at memcpy speed.
+tests/test_device_emit.py checks it byte-exact against the oracle on the CPU
+and, under the ``chip`` marker, on the GPU.
 
 The grammar expressed here (render/oracle.render_truecolor_fg; reference
 image_print_color, scalar/foreground.c:195-308 + ansi.c:248-311) as a

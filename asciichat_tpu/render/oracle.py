@@ -474,23 +474,31 @@ def render_halfblock_mono(rgb: np.ndarray, palette: str = pal.DEFAULT_PALETTE) -
 # Dispatch + full conversion driver
 
 
+_RENDERERS = {
+    "mono": render_mono,
+    "truecolor_fg": render_truecolor_fg,
+    "256color": render_256color,
+    "16color": render_16color,
+    "16color_dithered": render_16color_dithered,
+    "16color_dithered_bg": lambda rgb, p: render_16color_dithered_bg(rgb, True, p),
+    "halfblock_truecolor": lambda rgb, p: render_halfblock_truecolor(rgb),
+    "halfblock_256": render_halfblock_256,
+    "halfblock_16": render_halfblock_16,
+    "halfblock_mono": render_halfblock_mono,
+}
+
+
+def render_mode(rgb: np.ndarray, mode: str, palette: str = pal.DEFAULT_PALETTE) -> bytes:
+    """The scalar renderer for one cell-record mode (ops/cells.MODES) over
+    pixels already at renderer dims."""
+    return _RENDERERS[mode](rgb, palette)
+
+
 def image_print_with_capabilities(
     rgb: np.ndarray, caps: TerminalCapabilities, palette: str = pal.DEFAULT_PALETTE
 ) -> bytes:
     """Renderer dispatch (ascii.c:955-1002 + sgr.c:413-436 fallthrough)."""
-    key = caps.renderer_key()
-    fns = {
-        "halfblock_truecolor": lambda: render_halfblock_truecolor(rgb),
-        "halfblock_256": lambda: render_halfblock_256(rgb, palette),
-        "halfblock_16": lambda: render_halfblock_16(rgb, palette),
-        "halfblock_mono": lambda: render_halfblock_mono(rgb, palette),
-        "truecolor_fg": lambda: render_truecolor_fg(rgb, palette),
-        "16color_dithered_bg": lambda: render_16color_dithered_bg(rgb, True, palette),
-        "256color": lambda: render_256color(rgb, palette),
-        "16color": lambda: render_16color(rgb, palette),
-        "mono": lambda: render_mono(rgb, palette),
-    }
-    return fns[key]()
+    return render_mode(rgb, caps.renderer_key(), palette)
 
 
 def resize_image(rgb: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:

@@ -1,11 +1,11 @@
 """The fast conversion pipeline: batched frames -> byte-exact ANSI frames.
 
-TPU-native equivalent of ascii_convert_with_capabilities (ascii.c:194-387):
+Device equivalent of ascii_convert_with_capabilities (ascii.c:194-387):
 geometry on host (static per shape), per-pixel math as ONE jitted XLA graph on
 device (ops/cells.py), byte grammar on host via the native emitter. Unlike the
 reference — which converts one frame per render-thread tick — the unit of work
 here is a whole batch of frames (multiple clients x frames in flight), which
-is what makes a TPU chip's throughput reachable.
+is what makes an accelerator's throughput reachable.
 """
 
 from __future__ import annotations

@@ -302,7 +302,7 @@ def generate_manpage(registry: OptionsRegistry, prog: str = "asciichat-tpu") -> 
         f'.TH {prog.upper()} 1 "{_time.strftime("%Y-%m-%d")}" "{prog}" '
         '"User Commands"',
         ".SH NAME",
-        f"{prog} \\- TPU-native terminal video chat",
+        f"{prog} \\- terminal video chat on an accelerator",
         ".SH SYNOPSIS",
         f".B {prog}",
         ".I mode",

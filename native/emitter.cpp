@@ -1,7 +1,7 @@
 // ANSI byte-grammar emitter: walks fixed-shape device "cell records" and
 // produces byte-exact terminal frames, batched + multithreaded.
 //
-// This is the TPU framework's host-side counterpart of the reference's scalar
+// This is the framework's host-side counterpart of the reference's scalar
 // emission loops (lib/video/ascii/scalar/*.c, output_buffer.c, terminal/ansi.c):
 // the per-pixel math already happened on-device (asciichat_tpu/ops), so each
 // function here is a pure table walk over uint8 arrays — decimal LUTs, cached

@@ -76,8 +76,9 @@ def test_x25519_rfc7748_vector():
     bob_pub = bytes.fromhex(
         "de9edb7d7b7dc1b4d35b61c2ece435373f8343c85b78674dadfc7e146f882b4f"
     )
+    _priv_cls, pub_cls = C._x25519()  # the classes CryptoContext uses
     shared = X25519PrivateKey.from_private_bytes(alice_priv).exchange(
-        C.X25519PublicKey.from_public_bytes(bob_pub)
+        pub_cls.from_public_bytes(bob_pub)
     )
     assert shared == bytes.fromhex(
         "4a5d9d5ba4ce2de1728e3bf480350f25e07e21c947d19e3376f09b3c1e161742"

@@ -1,9 +1,8 @@
 """Device ANSI emitter experiment (ops/emit.py): byte-exact vs the oracle.
 
-The module is kept OUT of the serving path (measured 60-1500x slower than
-the host emitter on TPU — see its docstring), but it must stay correct:
-it is the executable record of the two-phase device-emission design and
-the evidence behind ARCHITECTURE.md's "emission stays on the host".
+The module is kept OUT of the serving path (see its docstring), but it must
+stay correct: a user who reaches it gets a checked result, on the CPU here
+and on the GPU under the ``chip`` marker.
 """
 
 import numpy as np
@@ -57,3 +56,18 @@ def test_device_emit_batched_consistency():
 def test_device_emit_rejects_utf8_palettes():
     with pytest.raises(ValueError):
         emit.ascii_glyph_table(pal.BUILTIN_PALETTES["blocks"])
+
+
+@pytest.mark.chip
+def test_device_emit_matches_oracle_on_gpu(gpu):
+    """The headline geometry (203x64 truecolor) on the card, batched."""
+    import jax
+
+    rng = np.random.default_rng(21)
+    rgb = rng.integers(0, 256, (4, 64, 203, 3), dtype=np.uint8)
+    rgb[1, :, :100] = rgb[1, :, :1]  # long runs: SGR only at run starts
+    luma = np.asarray(pixel.luminance(jax.device_put(rgb, gpu))).astype(np.uint8)
+    with jax.default_device(gpu):
+        outs = emit.emit_frames_device({"rgb": rgb, "luma": luma})
+    for i in range(len(rgb)):
+        assert outs[i] == oracle.render_truecolor_fg(rgb[i]), i

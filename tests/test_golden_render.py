@@ -18,20 +18,6 @@ from conftest import synthetic_frame
 
 ALL_MODES = list(cells.MODES)
 
-ORACLE_FNS = {
-    "mono": lambda rgb, p: oracle.render_mono(rgb, p),
-    "truecolor_fg": lambda rgb, p: oracle.render_truecolor_fg(rgb, p),
-    "256color": lambda rgb, p: oracle.render_256color(rgb, p),
-    "16color": lambda rgb, p: oracle.render_16color(rgb, p),
-    "16color_dithered": lambda rgb, p: oracle.render_16color_dithered(rgb, p),
-    "16color_dithered_bg": lambda rgb, p: oracle.render_16color_dithered_bg(rgb, True, p),
-    "halfblock_truecolor": lambda rgb, p: oracle.render_halfblock_truecolor(rgb),
-    "halfblock_256": lambda rgb, p: oracle.render_halfblock_256(rgb, p),
-    "halfblock_16": lambda rgb, p: oracle.render_halfblock_16(rgb, p),
-    "halfblock_mono": lambda rgb, p: oracle.render_halfblock_mono(rgb, p),
-}
-
-
 def _fast_path(frames: np.ndarray, mode: str, palette: str) -> list[bytes]:
     """Run device records + native emitter at native size (no resize)."""
     import jax.numpy as jnp
@@ -49,7 +35,7 @@ def test_mode_matches_oracle_random(mode):
     frames = gen.integers(0, 256, (3, 18, 31, 3), dtype=np.uint8)
     got = _fast_path(frames, mode, pal.DEFAULT_PALETTE)
     for i in range(frames.shape[0]):
-        want = ORACLE_FNS[mode](frames[i], pal.DEFAULT_PALETTE)
+        want = oracle.render_mode(frames[i], mode, pal.DEFAULT_PALETTE)
         assert got[i] == want, f"mode={mode} frame={i}"
 
 
@@ -62,7 +48,7 @@ def test_mode_matches_oracle_runs_and_black(mode):
     frame[0, :] = 255
     frames = frame[None]
     got = _fast_path(frames, mode, pal.DEFAULT_PALETTE)
-    want = ORACLE_FNS[mode](frame, pal.DEFAULT_PALETTE)
+    want = oracle.render_mode(frame, mode, pal.DEFAULT_PALETTE)
     assert got[0] == want, f"mode={mode}"
 
 
@@ -73,7 +59,7 @@ def test_utf8_palettes(palette_name):
     frame = synthetic_frame(10, 24, seed=9)[None]
     for mode in ("mono", "truecolor_fg", "256color", "16color"):
         got = _fast_path(frame, mode, palette)
-        want = ORACLE_FNS[mode](frame[0], palette)
+        want = oracle.render_mode(frame[0], mode, palette)
         assert got[0] == want, f"palette={palette_name} mode={mode}"
 
 

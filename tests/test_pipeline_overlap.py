@@ -1,5 +1,5 @@
 """Overlapped 3-stage serving pipeline (device convert || D2H || emit) —
-runtime/device_stream.OverlappedRenderPipeline, the TPU mapping of the
+runtime/device_stream.OverlappedRenderPipeline, the device mapping of the
 reference's 3-thread pipeline (src/common/session/pipeline.c:206,343).
 bench.py measures it at 1080p on the real chip; this asserts concurrency
 correctness (all stages progress together, clean shutdown, errors surface)

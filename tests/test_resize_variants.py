@@ -1,6 +1,5 @@
-"""All resize formulations must be bit-identical to the fixed-point C
-semantics: gather (reference), MXU one-hot matmul, Pallas kernel (interpret
-mode on CPU)."""
+"""The resize must be bit-identical to the fixed-point C semantics
+(render/oracle.resize_image, image.c:267-328) at every shape it serves."""
 
 import numpy as np
 import pytest
@@ -20,26 +19,25 @@ def test_gather_matches_oracle(src, dst):
 
     frame = synthetic_frame(*src, seed=3)
     want = oracle.resize_image(frame, dst_w=dst[1], dst_h=dst[0])
-    got = np.asarray(pixel.resize_nn(jnp.asarray(frame[None]), dst[0], dst[1], "gather"))[0]
+    got = np.asarray(pixel.resize_nn(jnp.asarray(frame[None]), dst[0], dst[1]))[0]
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("src,dst", [((48, 64), (12, 40)), ((240, 320), (57, 203))])
-def test_mxu_matches_gather(src, dst):
-    import jax.numpy as jnp
+@pytest.mark.parametrize(
+    "src,dst",
+    [
+        ((270, 480), (57, 203)),  # batch cell, 1080p -> 203x64 at 1/4 scale
+        ((96, 152), (128, 203)),  # tick: composite -> 203x128-px half-block
+        ((120, 160), (24, 80)),  # mirror, 640x480 -> 80x24 at 1/4 scale
+    ],
+    ids=["batch", "tick", "mirror"],
+)
+def test_resize_matches_oracle_at_cell_shapes(src, dst):
+    """Batched, inside jit, as the render steps call it."""
+    import jax
 
-    frames = jnp.asarray(np.stack([synthetic_frame(*src, seed=s) for s in range(3)]))
-    a = np.asarray(pixel.resize_nn(frames, dst[0], dst[1], "gather"))
-    b = np.asarray(pixel.resize_nn(frames, dst[0], dst[1], "mxu"))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_pallas_kernel_matches_gather_interpret():
-    import jax.numpy as jnp
-
-    from asciichat_tpu.ops.pallas_resize import resize_nn_pallas
-
-    frames = jnp.asarray(np.stack([synthetic_frame(64, 96, seed=s) for s in range(2)]))
-    a = np.asarray(pixel.resize_nn(frames, 17, 41, "gather"))
-    b = np.asarray(resize_nn_pallas(frames, 17, 41, interpret=True))
-    np.testing.assert_array_equal(a, b)
+    frames = np.stack([synthetic_frame(*src, seed=s) for s in range(3)])
+    got = np.asarray(jax.jit(lambda f: pixel.resize_nn(f, *dst))(frames))
+    for i, frame in enumerate(frames):
+        np.testing.assert_array_equal(
+            got[i], oracle.resize_image(frame, dst_w=dst[1], dst_h=dst[0]))

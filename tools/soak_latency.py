@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Latency/deadline soak: 3 production clients at the 60 fps serving cadence
-on CPU; asserts steady-state p99 tick latency under the 16.67 ms deadline.
+on the default device; asserts steady-state p99 tick latency under the 16.67 ms deadline.
 
 The reference is a latency-oriented system (16.67 ms tick deadline,
 src/server/render.c:4-7; SLOW_ASCII_CONVERT warnings past 5 ms,
@@ -26,7 +26,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from soak_common import (  # noqa: E402
-    boot_server, drive_client, make_client, stop_server, warmup_reset,
+    boot_server, device_info, drive_client, make_client, stop_server, warmup_reset,
 )
 
 WARMUP_FRACTION = 0.25
@@ -64,7 +64,8 @@ async def main(seconds: float) -> int:
     tick_rate = server.ticks / dt
     deadline_ms = server._tick_deadline * 1e3
     result = {
-        "soak": "latency_3client_60fps_cpu",
+        "soak": "latency_3client_60fps",
+        "device": device_info(),
         "seconds": round(dt, 1),
         "clients": 3,
         "frames_delivered": total,

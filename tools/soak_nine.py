@@ -9,7 +9,7 @@ churn client that joins and leaves throughout — every join/leave changes the
 source layout, forcing group rebuilds (re-traces) exactly like the
 reference's client_joined/left re-render path.
 
-Reported (one JSON line, docs/artifacts/soak_nine_r*.json):
+Reported (one JSON line on stdout):
 - per-client delivery counts + balance ratio (min/max over persistent 9)
 - tick cadence, device-tick fraction
 - RenderGroup (re)build count — the re-trace/layout-churn signal
@@ -34,7 +34,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from soak_common import (  # noqa: E402
-    boot_server, drive_client, lag_sampler, make_client, rss_kib, stop_server,
+    boot_server, device_info, drive_client, lag_sampler, make_client, rss_kib, stop_server,
     warmup_reset,
 )
 
@@ -157,7 +157,8 @@ async def main(seconds: float) -> int:
     }
     postwarm = samples[2:] if len(samples) > 4 else samples
     result = {
-        "soak": "nine_heterogeneous_churn_cpu",
+        "soak": "nine_heterogeneous_churn",
+        "device": device_info(),
         "seconds": round(dt, 1),
         # honesty: the harness clients share the server's ONE core; their
         # capture rate bounds how much core the tick loop can get (see

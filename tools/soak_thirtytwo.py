@@ -13,7 +13,7 @@ The reference caps the server at 32 clients
 - asserts every admitted client receives frames, balanced across the
   steady-state window, with the tick rate recorded honestly.
 
-Artifact: docs/artifacts/soak_thirtytwo_r*.json (one JSON line on stdout).
+Prints one JSON line on stdout.
 Usage: python tools/soak_thirtytwo.py [seconds] (defaults 180)
 """
 
@@ -28,7 +28,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from soak_common import (  # noqa: E402
-    boot_server, drive_client, make_client, rss_kib, stop_server, warmup_reset,
+    boot_server, device_info, drive_client, make_client, rss_kib, stop_server, warmup_reset,
 )
 
 
@@ -116,7 +116,8 @@ async def main(seconds: float) -> int:
     balance = (min(nums) / max(nums)) if nums and max(nums) > 0 else 0.0
     lat = server.tick_latency.stats_ms()
     result = {
-        "soak": "thirtytwo_clients_cpu",
+        "soak": "thirtytwo_clients",
+        "device": device_info(),
         "seconds": round(dt, 1),
         "clients": 32,
         "frames_delivered": total,
